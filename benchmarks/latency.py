@@ -37,13 +37,12 @@ def main():
         1, int(seconds * hparams.SMPRATE)).astype(np.float32) * 0.1)
 
     fn = jax.jit(model.separate_wav)
-    out = fn(params, wav)
-    _ = float(jnp.sum(out))  # compile + sync
+    jax.block_until_ready(fn(params, wav))  # compile
     t0 = time.perf_counter()
     n = 20
     for _ in range(n):
         out = fn(params, wav)
-    _ = float(jnp.sum(out))
+    jax.block_until_ready(out)
     dt = (time.perf_counter() - t0) / n
     rtf = seconds / dt
     print("separate_wav(%.0fs @ %dHz): %.1f ms  (%.0fx real-time)"

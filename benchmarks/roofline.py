@@ -1,12 +1,11 @@
-"""Roofline verdict for the flagship train step (VERDICT r4 item 7).
+"""Roofline verdict for the flagship train step.
 
 Prints, for the compiled attn-v1 B=64 shipping step (and any --encoder/
 --batch/--seqlen override): XLA's own FLOP count and bytes-accessed for
-the lowered program, the arithmetic intensity FLOP/byte, the chip's
-ridge point (bf16 peak / HBM bandwidth), and the implied bound —
-whether the measured MFU ceiling is the memory system or the MXU — so
-PARITY.md can state the ceiling as a measured fact instead of an open
-question.
+the lowered program, the arithmetic intensity FLOP/byte, the card's
+ridge point (bf16 peak / memory bandwidth, from bench.PEAKS), and the
+implied bound — whether the measured ceiling is the memory system or
+the tensor cores.
 
 Run on the chip:  python benchmarks/roofline.py [--encoder E] [--batch B]
                   [--seqlen T] [--measured-ms MS]
@@ -19,16 +18,6 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
-
-# public per-chip specs (same table as bench.py for the peak)
-_CHIP = {
-    # kind: (bf16 peak TFLOP/s, HBM GB/s)
-    "TPU v5 lite": (197.0, 819.0),
-    "TPU v5p": (459.0, 2765.0),
-    "TPU v4": (275.0, 1228.0),
-    "TPU v3": (123.0, 900.0),
-    "TPU v6 lite": (918.0, 1640.0),
-}
 
 
 def main():
@@ -45,10 +34,9 @@ def main():
     bench.ENCODER = args.encoder
     bench.BATCH = args.batch
     bench.T = args.seqlen
-    # the shipping step shape: configs/tpu.json aux losses etc.
+    # the shipping step shape: configs/shipping.json aux losses etc.
     import json
-    with open(os.path.join(os.path.dirname(os.path.dirname(
-            os.path.abspath(__file__))), "configs", "tpu.json")) as f:
+    with open(bench.SHIPPING_CONFIG) as f:
         cfg = json.load(f)
     cfg["ENCODER_TYPE"] = args.encoder
     bench.CONFIG_OVERRIDES = cfg
@@ -60,8 +48,10 @@ def main():
     ca = ca[0] if isinstance(ca, list) else ca
     flops = float(ca.get("flops", 0.0))
     byts = float(ca.get("bytes accessed", 0.0))
-    kind = getattr(jax.devices()[0], "device_kind", "?")
-    peak, bw = _CHIP.get(kind, (None, None))
+    kind = jax.devices()[0].device_kind
+    entry = bench.peak_for(kind)
+    peak = entry["bf16_tflops"] if entry else None
+    bw = entry["hbm_tb_per_s"] * 1e3 if entry else None  # GB/s
     print("device: %s" % kind)
     print("program: %s B=%d T=%d (shipping config overrides)"
           % (args.encoder, args.batch, args.seqlen))
@@ -74,18 +64,18 @@ def main():
             ridge = peak * 1e12 / (bw * 1e9)
             print("ridge point (%s): %.0f FLOP/byte  ->  %s-bound regime"
                   % (kind, ridge,
-                     "HBM" if inten < ridge else "compute"))
+                     "memory" if inten < ridge else "compute"))
             mem_ms = byts / (bw * 1e9) * 1e3
-            mxu_ms = flops / (peak * 1e12) * 1e3
-            floor = max(mem_ms, mxu_ms)
-            print("lower bounds: HBM %.3f ms, MXU %.3f ms -> "
-                  "speed-of-light %.3f ms/step" % (mem_ms, mxu_ms, floor))
+            tc_ms = flops / (peak * 1e12) * 1e3
+            floor = max(mem_ms, tc_ms)
+            print("lower bounds: memory %.3f ms, tensor cores %.3f ms -> "
+                  "speed-of-light %.3f ms/step" % (mem_ms, tc_ms, floor))
             if args.measured_ms:
                 print("measured %.3f ms/step = %.1f%% of program "
-                      "speed-of-light (MFU vs MXU peak %.1f%%)"
+                      "speed-of-light (MFU vs bf16 peak %.1f%%)"
                       % (args.measured_ms,
                          100.0 * floor / args.measured_ms,
-                         100.0 * mxu_ms / args.measured_ms))
+                         100.0 * tc_ms / args.measured_ms))
 
 
 if __name__ == "__main__":

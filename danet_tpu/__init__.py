@@ -1,4 +1,4 @@
-"""danet_tpu: a TPU-native (JAX/XLA/Pallas/pjit) speech-separation framework
+"""danet_tpu: a JAX/XLA speech-separation framework
 with the capabilities of khaotik/DaNet-Tensorflow.
 
 Importing this package populates the component registries

@@ -19,11 +19,6 @@ from danet_tpu.data.audio import random_zeropad
 from danet_tpu.data.dataset import Dataset
 from danet_tpu.hparams import hparams
 
-try:
-    import h5py
-except ImportError:  # pragma: no cover - h5py is baked into the image
-    h5py = None
-
 
 @hparams.register_dataset("wsj0")
 class Wsj0Dataset(Dataset):
@@ -43,8 +38,10 @@ class Wsj0Dataset(Dataset):
                 pass  # interpreter teardown: h5py internals may be gone
 
     def install_and_load(self):
-        if h5py is None:
-            raise RuntimeError("h5py is required for the WSJ0 dataset")
+        try:
+            import h5py  # only this dataset needs it: imported on use
+        except ImportError as e:
+            raise RuntimeError("h5py is required for the WSJ0 dataset") from e
         if not os.path.exists(self.path):
             raise IOError(
                 'Did not find WSJ0 file "%s", run data/WSJ0/install.sh first'

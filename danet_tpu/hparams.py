@@ -8,11 +8,11 @@ for derived parameters, and five decorator registries
 (encoder/estimator/separator/optimizer/dataset) so user components are
 selectable by config string.
 
-Differences from the reference (deliberate, TPU-first):
+Differences from the reference (deliberate):
   * The window function is resolved through a named window registry instead of
     ``eval``-ing a Python expression from JSON
     (reference security bug at hparams.py:41-42).
-  * Extra keys for the TPU runtime: mesh shape, compute dtype, bucketing.
+  * Extra keys for the runtime: mesh shape, compute dtype, bucketing.
   * ``digest()`` precomputes the STFT window as a numpy array once.
 """
 from __future__ import annotations

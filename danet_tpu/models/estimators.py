@@ -1,10 +1,10 @@
 """Attractor estimators: truth / truth-threshold / truth-weighted / anchor.
 
-TPU-native re-implementations of the reference estimator registry
+Re-implementations of the reference estimator registry
 (/root/reference/app/modules.py:382-545).  The reference computes per-source
 means with ``tf.map_fn`` + ``unsorted_segment_sum``; here the hard assignment
 becomes a one-hot tensor and every segment mean is a single batched einsum —
-a GEMM on the MXU with no scatter, no host loop, and a trivially clean
+a GEMM with no scatter, no host loop, and a trivially clean
 gradient.  The anchored estimator is pure einsum/argmin and maps 1:1 to XLA.
 """
 from __future__ import annotations
@@ -212,7 +212,7 @@ class AnchoredEstimator(Estimator):
         [sigmoid(x-y), sigmoid(y-x)].  This path runs EVERY training
         step under the shipping config (ANCHOR_AUX_LOSS through the
         kmeans estimator, whose init is the anchor mechanism), where
-        the materialized form dominated the non-MXU step tail."""
+        the materialized form dominated the step tail."""
         b, e_dim = embed.shape[0], embed.shape[-1]
         e_flat = embed.reshape(b, -1, e_dim)                # [B, K, E]
         k = e_flat.shape[1]

@@ -17,10 +17,10 @@ that native setting, reusing the framework's TCN residual blocks
 (models/encoders.py::TcnEncoder._block), uPIT SI-SNR loss and BSS-eval
 metrics.
 
-TPU mapping: framing is a static gather; the encoder/decoder bases are
+Device mapping: framing is a static gather; the encoder/decoder bases are
 [win, N] GEMMs; every TCN stage is a batched GEMM or depthwise conv —
 there is NO sequential scan anywhere, so the whole training step is
-MXU-shaped (contrast the BiLSTM's T-step recurrence).
+GEMM-shaped (contrast the BiLSTM's T-step recurrence).
 
 Contract: drop-in for the Trainer/serving surfaces (init / train_loss /
 valid_metrics / separate / separate_wav / parameter_count), selected via
@@ -186,7 +186,7 @@ class TasNet:
         """EXACT sequence-parallel forward over a 'seq' mesh axis.
 
         The waveform shards in equal sample chunks; every stage is local
-        except three cheap boundary exchanges over the ICI:
+        except three cheap boundary exchanges:
 
           * framing: each shard fetches the (win - stride)-sample head of
             its RIGHT neighbour (one ppermute) so boundary-straddling

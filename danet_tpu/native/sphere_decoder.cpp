@@ -1,6 +1,6 @@
 // Native NIST SPHERE decoder: PCM, mu-law/A-law, and embedded shorten-v2.
 //
-// TPU-native replacement for the reference's external `sph2pipe` C tool,
+// Replacement for the reference's external `sph2pipe` C tool,
 // which its WSJ0 pipeline downloads and compiles
 // (/root/reference/app/datasets/WSJ0/install.sh:11-17) and shells out to
 // per file (WSJ0/process.py:46-49).  This is a from-scratch implementation

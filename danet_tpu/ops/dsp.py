@@ -1,14 +1,13 @@
-"""TPU-native STFT / iSTFT as GEMM-native DFT.
+"""STFT / iSTFT as GEMM-native DFT.
 
 The reference computes STFT on the host with ``scipy.signal.stft``
 (/root/reference/app/utils.py:117-122) and iSTFT with a Python overlap-add
-loop (utils.py:53-75).  On TPU the natural formulation is a *matmul against a
+loop (utils.py:53-75).  Here the transform is a *matmul against a
 precomputed DFT basis*: framing is a static gather, and the windowed DFT of
 all frames is a single ``[num_frames, fft_size] @ [fft_size, 2*feature]``
-GEMM that XLA tiles straight onto the MXU.  No FFT primitive is needed for
-speech-sized FFTs (256-1024 points); the O(N^2) matmul is faster than a
-poorly-tiled FFT at these sizes and fuses with neighbouring elementwise ops
-(window, log1p) in one XLA computation.
+GEMM.  No FFT primitive is needed for speech-sized FFTs (256-1024 points),
+and the GEMM fuses with neighbouring elementwise ops (window, log1p) in one
+XLA computation.  Whether cuFFT beats it on the GPU is not measured yet.
 
 Conventions match ``scipy.signal.stft`` with ``boundary='zeros'``,
 ``padded=True``, one-sided output, and ``1/window.sum()`` scaling, so that
@@ -18,7 +17,7 @@ device-side spectra are interchangeable with the host preprocessing output
 The inverse transform reproduces the reference's overlap-add with window**2
 normalization (utils.py:53-75), including its frame-count convention.
 
-Complex dtypes cannot cross the host<->TPU boundary here, so the *_ri
+Complex dtypes stay off the device, so the *_ri
 variants (trailing (real, imag) axis) are the device-side API; the complex
 variants serve host-side/CPU tests.
 """

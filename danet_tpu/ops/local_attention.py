@@ -3,9 +3,8 @@
 The single-program ATTN_CAUSAL path in models/encoders.py masks dense
 [B, H, T, T] logits with the causal band — exact, but quadratic in T,
 which defeats the point of a finite ATTN_LOOKBACK at the tl=512+
-curriculum stages and long-form offline inference.  The Pallas flash
-kernel (ops/pallas/attention.py) has no band support, and a custom
-banded flash kernel is not needed: with a lookback window w and a chunk
+curriculum stages and long-form offline inference.  A banded flash
+kernel is not needed: with a lookback window w and a chunk
 size C >= w-1, every query in chunk s can only see keys in chunks s-1
 and s, so banded attention decomposes into S = T/C independent
 [C x 2C]-logit blocks — the standard sliding-window chunking (Longformer
@@ -13,8 +12,8 @@ local attention; also how the streaming K/V cache path already works,
 one chunk at a time).
 
 This is pure XLA: two batched GEMMs per layer on [B, S, C, 2C] logits —
-O(T * C) memory instead of O(T^2) — with a clean autodiff gradient, no
-Mosaic shape pitfalls, and it runs identically on CPU meshes.  The band
+O(T * C) memory instead of O(T^2) — with a clean autodiff gradient, and
+it runs identically on CPU meshes.  The band
 semantics are nn.causal_band, shared with the dense, ring/Ulysses SP and
 streaming paths; since qpos - kpos depends only on in-chunk offsets, ONE
 [C, 2C] band matrix serves every chunk.
@@ -98,10 +97,10 @@ def resolve_banded_attn_fn(hp, t: int, window: int, dense_fn):
     """Pick the single-program ATTN_CAUSAL implementation for length t.
 
     ATTN_LOCAL_CHUNK: 0/absent = auto (chunked when at least 8 chunks
-    fit — measured on v5e (benchmarks/banded_attention.py) the chunked
-    form is time-parity at 8 chunks and 1.7-10x faster beyond, while at
-    4 chunks the reshapes cost ~4% and the memory saving is only 2x);
-    -1 = always dense; >0 = force that chunk size.
+    fit: with fewer the memory saving is small and the reshapes cost
+    time; the crossover on the H100 is not measured yet,
+    benchmarks/banded_attention.py); -1 = always dense; >0 = force that
+    chunk size.
     """
     cfg = int(getattr(hp, "ATTN_LOCAL_CHUNK", 0) or 0)
     if cfg < 0:

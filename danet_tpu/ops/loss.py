@@ -1,6 +1,6 @@
 """Losses and metrics: permutation-invariant MSE, batched SNR.
 
-TPU-native reimplementation of the reference op library's loss/metric ops
+Reimplementation of the reference op library's loss/metric ops
 (/root/reference/app/ops.py:191-222 batch_snr, ops.py:374-431 pit_mse_loss).
 The permutation search is a dense einsum against a constant one-hot
 permutation stack — N! is tiny (N=2..4 speakers), so the full cost matrix +
@@ -28,8 +28,8 @@ def _squared_error(x: jnp.ndarray, y: jnp.ndarray,
 
     With complex_ri=True the trailing axis holds (real, imag) and the
     squared error is re^2 + im^2 of the difference — the device-side
-    representation of complex spectra on TPU (complex dtypes stay off
-    device; see ops/dsp.py).
+    representation of complex spectra (complex dtypes stay off device;
+    see ops/dsp.py).
     """
     d = x - y
     if complex_ri:
@@ -102,7 +102,7 @@ def pit_mse_loss(x: jnp.ndarray, y: jnp.ndarray, pit_axis: int = 1,
         # exact loss of the winning permutation (differentiable path);
         # un-permute via the one-hot matrix: its VJP is another einsum
         # (GEMM), where take_along_axis would put a scatter-add on the
-        # gradient path (slow on TPU)
+        # gradient path
         sel_oh = jnp.asarray(onehot)[perm_idx]             # [B, N, N]
         y_pit = jnp.einsum("bnm,bmd->bnd", sel_oh, yf)
         # = sum over sources of the per-pair means (the dense loss_sets
@@ -333,7 +333,7 @@ def bss_eval_sources(ref: jnp.ndarray, est: jnp.ndarray,
     All correlations are computed with one batched rFFT and the projection
     coefficients with one dense solve of the [N*L, N*L] block-Toeplitz
     Gram system — no data-dependent control flow, so the whole metric jits
-    onto the MXU.  Computed in f32 (TPU-native): the Gram-solve precision
+    to one program.  Computed in f32: the Gram-solve precision
     caps a *perfect* estimate at roughly 30 dB SDR, far above any real
     separation quality; oracle-tested vs an explicit float64 least-squares
     decomposition (tests/test_loss.py).
@@ -388,10 +388,10 @@ def bss_eval_sources(ref: jnp.ndarray, est: jnp.ndarray,
     c_all = ec[:, :, :ell]                             # lags 0..L-1
 
     # Projection coefficients via a Tikhonov-regularized solve.  An SVD/
-    # eigh-cutoff pseudo-inverse was tried and measured WORSE on TPU: f32
-    # eigh of these ill-conditioned Toeplitz Grams misestimates the small
-    # eigenpairs and the reconstructed inverse explodes, whereas the
-    # ridge-shifted direct solve stays bounded.  (On genuinely
+    # eigh-cutoff pseudo-inverse is worse here: f32 eigh of these
+    # ill-conditioned Toeplitz Grams misestimates the small eigenpairs and
+    # the reconstructed inverse explodes, whereas the ridge-shifted direct
+    # solve stays bounded.  (On genuinely
     # rank-deficient material the metric itself is non-identifiable — see
     # the caveat above — regardless of solver.)
     ridge = rcond * jnp.trace(gram) / (n * ell)
@@ -480,8 +480,7 @@ def dc_loss(embed: jnp.ndarray, src_pwr: jnp.ndarray,
 
     The naive affinity formulation ||VV^T - YY^T||_F^2 is quadratic in
     the number of bins (TF ~ 16k -> a 260M-entry affinity matrix).  The
-    standard low-rank expansion makes it three tiny Gram GEMMs, all
-    MXU-shaped:
+    standard low-rank expansion makes it three tiny Gram GEMMs:
 
         ||V^T V||_F^2 - 2 ||V^T Y||_F^2 + ||Y^T Y||_F^2
 

@@ -22,7 +22,7 @@ def uniform_init(rng, shape, scale, dtype=jnp.float32):
 def mm(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     """Matmul with f32 accumulation, output in the operands' dtype.
 
-    With bf16 operands this engages the MXU's native bf16 path while
+    With bf16 operands this runs the bf16 tensor-core path while
     accumulating in f32 (mixed-precision training standard); with f32 it is
     a plain f32 matmul."""
     return jnp.matmul(
@@ -122,13 +122,13 @@ def conv2d_init(rng, in_ch: int, out_ch: int, ksize: int,
 
 
 def conv2d_apply(params, x: jnp.ndarray) -> jnp.ndarray:
-    """NCHW 'SAME' convolution; feeds the MXU via lax.conv_general_dilated.
+    """NCHW 'SAME' convolution via lax.conv_general_dilated.
 
     Kernel follows the activation dtype and the output stays in it too:
     a preferred_element_type=f32 output makes the VJP's transposed convs
     see an f32 cotangent against bf16 operands, which lax rejects (the
     same trap conv1d_depthwise_apply documents).  Accumulation is not
-    sacrificed — the MXU accumulates bf16 convs in f32 internally; only
+    sacrificed — bf16 convs accumulate in f32 internally; only
     the output rounding point moves, and the very next op casts to
     x.dtype anyway.
     """
@@ -143,7 +143,7 @@ def conv1d_depthwise_init(rng, channels: int, ksize: int,
                           dtype=jnp.float32):
     """Params for a depthwise (per-channel) 1-D conv over the time axis —
     the TCN block's temporal mixer (no cross-channel contraction; the
-    surrounding 1x1 linears do channel mixing on the MXU)."""
+    surrounding 1x1 linears do channel mixing)."""
     if w_scale is None:
         w_scale = float(np.sqrt(6.0 / (2 * ksize)))  # fan_in = fan_out = K
     return {
@@ -162,8 +162,8 @@ def conv1d_depthwise_apply(params, x: jnp.ndarray, dilation: int = 1,
     splits symmetrically ('SAME' with dilation).
 
     Runs in f32 regardless of the activation dtype: a depthwise conv is
-    K MACs per output element — bandwidth-bound, so f32 costs nothing on
-    the MXU path, and mixed bf16/f32 conv operands break the VJP's
+    K MACs per output element — bandwidth-bound, so f32 costs little,
+    and mixed bf16/f32 conv operands break the VJP's
     transpose-conv dtype agreement.
     """
     k = params["w"].shape[-1]

@@ -27,8 +27,8 @@ def _clip_transform(grad_clip, clip_norm):
     Both modes live in a SINGLE always-present transform with EmptyState
     so the optax chain is always (clip, inject) — toggling either key
     between stages of a run never changes the opt_state tree structure,
-    and checkpoints stay restorable across the toggle (Orbax validates
-    structure, not just leaves).
+    and checkpoints stay restorable across the toggle (a restore
+    matches leaves by their tree path).
     """
     import jax
     import jax.numpy as jnp

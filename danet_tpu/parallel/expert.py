@@ -157,7 +157,7 @@ def _topk_dispatch(logits, k: int, cap: int):
     Scaling note: this is GShard's dense einsum dispatch — the [N, E, C]
     tensors are O(k * cf * N^2) elements since C grows with N, and the
     dispatch einsums add O(N * E * C * d) FLOPs.  That is the standard
-    TPU form (scatter-free, exact, clean VJP) and is cheap at this
+    form (scatter-free, exact, clean VJP) and is cheap at this
     repo's MoE scales (N <= a few thousand per shard; under expert
     parallelism N is the PER-DEVICE token count, so the quadratic term
     shrinks with the mesh).  For very long sequences a sort/segment_sum

@@ -7,7 +7,7 @@ BiLSTM encoders route their stacks through here): consecutive BiLSTM layers
 are grouped into one stage per device along the 'pipe' mesh axis (each
 device holds ONLY its stage's weights — the stacked layer pytree is sharded
 over the axis), the batch is split into microbatches, and activations flow
-stage-to-stage over the ICI via `ppermute` in a software-pipelined schedule
+stage-to-stage via `ppermute` in a software-pipelined schedule
 of ``n_micro + n_stages - 1`` ticks (bubble fraction (S-1)/(M+S-1)).
 
 The schedule is pure lax ops with a static trip count, so JAX autodiff
@@ -70,7 +70,7 @@ def stack_pipeline_params(params_list, mesh, pipe_axis: str = "pipe"):
 def bilstm_stack_pipelined(params_list, x, mesh, n_micro: int = 4,
                            pipe_axis: str = "pipe",
                            candidate_activation: str = "tanh",
-                           backend: str = "xla", stacked=None,
+                           stacked=None,
                            dropout_rng=None, keep_prob: float = 1.0,
                            remat: bool = False):
     """Run a BiLSTM stack pipelined over `pipe_axis`.
@@ -139,7 +139,7 @@ def bilstm_stack_pipelined(params_list, x, mesh, n_micro: int = 4,
         def apply_layer(layer, z, key):
             return rnn.bilstm_apply(
                 layer, z, candidate_activation, dropout_rng=key,
-                keep_prob=keep_prob, backend=backend)
+                keep_prob=keep_prob)
 
         # REMAT: recompute layer activations in the backward pass (same
         # policy the sequential encoder branch applies per layer)

@@ -7,7 +7,7 @@ ring); key/value blocks rotate around the ring via `ppermute`, and each
 device folds every incoming block into a numerically-stable online-softmax
 accumulator (flash-attention style running max / denominator), so the
 result is EXACT full attention with O(T/S) memory per device and
-communication that rides the ICI ring.
+communication around the device ring.
 """
 from __future__ import annotations
 
@@ -114,7 +114,7 @@ def ring_attention(q, k, v, mesh, seq_axis: str = "seq",
             acc, m, denom = _fold_block(
                 acc, m, denom, qf, k_blk.astype(jnp.float32),
                 v_blk.astype(jnp.float32), scale, mask_blk, band)
-            # the last iteration's rotation would be dead ICI traffic
+            # the last iteration's rotation would be dead traffic
             k_blk, v_blk, mask_blk = jax.lax.cond(
                 i < s - 1, rotate, lambda blks: blks,
                 (k_blk, v_blk, mask_blk))

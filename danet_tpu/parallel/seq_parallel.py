@@ -16,7 +16,7 @@ state chain.  Two schemes are implemented (SP_RNN_SCHEME):
   and composes with dp/tp for throughput, at dense-scan wall-clock.
 
 * ``halo`` (approximate, lower latency): every device warms its LSTM
-  state up on a halo of frames received from its neighbour over the ICI,
+  state up on a halo of frames received from its neighbour,
   then discards the halo outputs.  The recurrence is exact within a chunk
   and approximate across chunk boundaries with error decaying in the halo
   length (LSTM state has finite memory).  Wall-clock per layer
@@ -24,7 +24,7 @@ state chain.  Two schemes are implemented (SP_RNN_SCHEME):
   when latency matters more than bit-exactness.
 
 Comms per layer: relay = S-1 state hops per direction (tiny [B, H]
-messages); halo = two edge-slice ppermutes.  Both ride the ICI.
+messages); halo = two edge-slice ppermutes.
 
 Composes with data parallelism: when the mesh also carries a 'data' axis
 (and the batch divides over it), the batch dim is sharded over 'data'
@@ -62,8 +62,7 @@ def _shift_from_right(x_edge, axis_name):
 
 
 def _bilstm_layer_local(p, x_loc, halo: int, axis_name: str,
-                        candidate_activation: str, backend: str,
-                        vary_axes=None):
+                        candidate_activation: str, vary_axes=None):
     """One BiLSTM layer on a local chunk [B, C, F] with halo warmup.
 
     Each direction runs a short warmup scan over the neighbour's halo
@@ -97,10 +96,10 @@ def _bilstm_layer_local(p, x_loc, halo: int, axis_name: str,
 
     c0f, h0f = boundary_state(p["fwd"], left, False, idx == 0)
     h_f = rnn.lstm_apply(p["fwd"], x_loc, candidate_activation,
-                         backend=backend, c0=c0f, h0=h0f)
+                         c0=c0f, h0=h0f)
     c0b, h0b = boundary_state(p["bwd"], right, True, idx == s - 1)
     h_b = rnn.lstm_apply(p["bwd"], x_loc, candidate_activation,
-                         reverse=True, backend=backend, c0=c0b, h0=h0b)
+                         reverse=True, c0=c0b, h0=h0b)
     return jnp.concatenate([h_f, h_b], axis=-1)
 
 
@@ -144,10 +143,7 @@ def _bilstm_layer_relay(p, x_loc, axis_name: str,
                         candidate_activation: str, vary_axes):
     """One EXACT sequence-parallel BiLSTM layer on a local chunk
     [B, C, F]: forward relay left-to-right, backward relay right-to-left
-    (the two directions' rounds interleave, so both rings are busy).
-    Note: the relay needs the final scan state, which routes through the
-    XLA scan (ops/rnn.py lstm_apply return_state) — the Pallas kernel
-    path applies to the dense/halo schemes."""
+    (the two directions' rounds interleave, so both rings are busy)."""
     hdim = p["fwd"]["wh"].shape[0]
 
     def direction(pp, reverse):
@@ -179,8 +175,7 @@ def _gru_layer_relay(p, x_loc, axis_name: str, vary_axes):
                             reverse=False, n_state=1)
 
 
-def _gru_layer_local(p, x_loc, halo: int, axis_name: str, backend: str,
-                     vary_axes):
+def _gru_layer_local(p, x_loc, halo: int, axis_name: str, vary_axes):
     """One unidirectional GRU layer on a local chunk with halo warmup
     (same edge-zeroing scheme as the BiLSTM forward direction)."""
     left = _shift_from_left(x_loc[:, -halo:], axis_name)
@@ -190,13 +185,11 @@ def _gru_layer_local(p, x_loc, halo: int, axis_name: str, backend: str,
         to="varying")
     _, c_w = rnn.gru_apply(p, left, c0=zero, return_state=True)
     keep = jnp.where(jax.lax.axis_index(axis_name) == 0, 0.0, 1.0)
-    return rnn.gru_apply(p, x_loc, c0=c_w * keep.astype(c_w.dtype),
-                         backend=backend)
+    return rnn.gru_apply(p, x_loc, c0=c_w * keep.astype(c_w.dtype))
 
 
 def gru_stack_sp(params_list, x, mesh, halo: int = 32,
-                 seq_axis: str = "seq", backend: str = "auto",
-                 data_axis: str = "data",
+                 seq_axis: str = "seq", data_axis: str = "data",
                  drop_keys=None, keep_prob: float = 1.0,
                  remat: bool = False, scheme: str = "relay"):
     """Sequence-parallel stack of unidirectional GRU layers (gru-v1
@@ -233,7 +226,7 @@ def gru_stack_sp(params_list, x, mesh, halo: int = 32,
                     pp, v, seq_axis, vary), remat)
             else:
                 layer = _maybe_ckpt(lambda pp, v: _gru_layer_local(
-                    pp, v, halo, seq_axis, backend, vary), remat)
+                    pp, v, halo, seq_axis, vary), remat)
             y = layer(p, y)
             if has_key:
                 from danet_tpu.ops.nn import dropout
@@ -258,7 +251,7 @@ def tcn_stack_sp(params, x, mesh, dilations, kernel: int, causal: bool,
     computation bit-for-bit: the ppermute zero-fill at the ring edges IS
     the zero padding the global conv applies at the sequence edges.
     Comms: one (causal) or two (non-causal) edge-slice ppermutes per
-    block over the ICI.
+    block.
 
     Args:
         params: {"bottleneck": linear, "block{i}": TCN block dicts} (the
@@ -371,7 +364,6 @@ def _maybe_ckpt(fn, remat: bool):
 def bilstm_stack_sp(params_list, x, mesh, halo: int = 32,
                     seq_axis: str = "seq",
                     candidate_activation: str = "tanh",
-                    backend: str = "auto",
                     data_axis: str = "data",
                     drop_keys=None, keep_prob: float = 1.0,
                     remat: bool = False, scheme: str = "relay"):
@@ -429,7 +421,7 @@ def bilstm_stack_sp(params_list, x, mesh, halo: int = 32,
                     vary_axes=vary), remat)
             else:
                 layer = _maybe_ckpt(lambda pp, v: _bilstm_layer_local(
-                    pp, v, halo, seq_axis, candidate_activation, backend,
+                    pp, v, halo, seq_axis, candidate_activation,
                     vary_axes=vary), remat)
             y = layer(p, y)
             if has_key:
@@ -574,8 +566,8 @@ def conv_bilstm_sp(params, x, mesh, nfft: int, feature_size: int,
 
 
 def dprnn_stack_sp(params, x, mesh, p: int, n_blocks: int,
-                   inter_causal: bool, backend: str = "auto",
-                   seq_axis: str = "seq", data_axis: str = "data",
+                   inter_causal: bool, seq_axis: str = "seq",
+                   data_axis: str = "data",
                    drop_keys=None, keep_prob: float = 1.0,
                    remat: bool = False):
     """EXACT sequence-parallel dual-path RNN stack (dprnn-v1 encoder
@@ -592,7 +584,7 @@ def dprnn_stack_sp(params, x, mesh, p: int, n_blocks: int,
         axis locally on 1/s of the positions, and a second all_to_all
         restores segment sharding.
 
-    Comms: two all-to-alls per block over the ICI.  Requires
+    Comms: two all-to-alls per block.  Requires
     T % (P * s) == 0 (whole segments per device) and P % s == 0 (the
     position split).
 
@@ -646,8 +638,7 @@ def dprnn_stack_sp(params, x, mesh, p: int, n_blocks: int,
         def one_block(blk, chunks, dkey):
             # intra-chunk path: segment-local, exact under the sharding
             y = rnn.bilstm_apply(
-                blk["intra"], chunks.reshape(bl * s_loc, p, d), "tanh",
-                backend=backend)
+                blk["intra"], chunks.reshape(bl * s_loc, p, d), "tanh")
             y = nn.linear_apply(blk["intra_proj"], y).reshape(
                 bl, s_loc, p, d)
             y = _ln(blk["intra_ln"], y)
@@ -662,11 +653,9 @@ def dprnn_stack_sp(params, x, mesh, p: int, n_blocks: int,
             yq = jnp.transpose(yp, (0, 2, 1, 3)).reshape(
                 bl * p_loc, s_glob, d)
             if inter_causal:
-                yq = rnn.lstm_apply(blk["inter"], yq, "tanh",
-                                    backend=backend)
+                yq = rnn.lstm_apply(blk["inter"], yq, "tanh")
             else:
-                yq = rnn.bilstm_apply(blk["inter"], yq, "tanh",
-                                      backend=backend)
+                yq = rnn.bilstm_apply(blk["inter"], yq, "tanh")
             yq = nn.linear_apply(blk["inter_proj"], yq)
             yq = jnp.transpose(
                 yq.reshape(bl, p_loc, s_glob, d), (0, 2, 1, 3))

@@ -1,10 +1,10 @@
 """Device mesh + sharding rules: data / tensor parallelism via GSPMD.
 
 The reference is single-process, single-device (README.md:226, SURVEY.md
-§2.4).  This module is the TPU-native replacement: a ``('data', 'model')``
+§2.4).  This module is the replacement: a ``('data', 'model')``
 ``jax.sharding.Mesh``, path-based PartitionSpec rules for the parameter
 pytree, and helpers to place batches/params.  XLA's SPMD partitioner then
-inserts the ICI collectives (gradient psum over 'data'; all-gathers for the
+inserts the collectives (gradient psum over 'data'; all-gathers for the
 tensor-sharded LSTM gate GEMMs over 'model') — no hand-written NCCL/MPI.
 
 Sharding layout:
@@ -46,11 +46,11 @@ def make_mesh(n_data: Optional[int] = None, n_model: Optional[int] = None,
     chunks, parallel/seq_parallel.py + ring/ulysses attention), a 'pipe'
     axis (pipeline stages, parallel/pipeline.py) and an 'expert' axis
     (MoE expert groups, parallel/expert.py) are appended only when their
-    size exceeds 1, so plain dp/tp meshes keep their 2-axis shape.  'seq'
-    is the LAST axis: its neighbours are adjacent devices, so the
-    halo/ring ppermutes ride nearest-neighbour ICI links.  With no
-    explicit factors, all devices go to the 'data' axis (pure DP is the
-    north-star upgrade over the reference's single-GPU limit).
+    size exceeds 1, so plain dp/tp meshes keep their 2-axis shape.  Axis
+    order carries no topology assumption: NVLink joins the cards all to
+    all.  With no explicit factors, all devices go to the 'data' axis
+    (pure DP is the north-star upgrade over the reference's single-GPU
+    limit).
     """
     devices = devices if devices is not None else jax.devices()
     n_dev = len(devices)

@@ -3,8 +3,8 @@
 SURVEY.md §2.4 plans two long-context strategies for the attention
 encoder family (the reference has neither — no attention anywhere,
 `app/modules.py`): ring attention (parallel/ring_attention.py — K/V
-blocks rotate the ICI ring, O(T/S) memory, S ppermute rounds) and this
-Ulysses-style path: ONE all-to-all converts the T-sharded activations
+blocks rotate around the device ring, O(T/S) memory, S ppermute rounds)
+and this Ulysses-style path: ONE all-to-all converts the T-sharded activations
 into head-sharded full-sequence blocks, each device runs plain dense
 attention over the whole sequence for H/S heads, and a second
 all-to-all restores T-sharding.
@@ -13,7 +13,7 @@ Trade-off vs ring: two collectives total (latency-bound) instead of S
 rotations (bandwidth-pipelined), full-T logits memory per device but
 only for H/S heads.  For the moderate T of speech separation the
 all-to-all pair is usually cheaper; ring wins once T is too long for
-full-T logits to fit VMEM/HBM.  Requires heads % S == 0 (ring instead
+full-T logits to fit device memory.  Requires heads % S == 0 (ring instead
 requires nothing of H).  Both are EXACT — same output as
 `AttentionEncoder._dense_attention` up to f32 accumulation order.
 """

@@ -12,6 +12,7 @@ from __future__ import annotations
 import datetime
 import json
 import os
+import sys
 import time
 from typing import Optional
 
@@ -26,9 +27,11 @@ class MetricsWriter:
         if tensorboard:
             try:
                 from tensorboardX import SummaryWriter
+            except ImportError:
+                sys.stderr.write("tensorboardX is not installed: metrics go "
+                                 "to metrics.jsonl only\n")
+            else:
                 self._tb = SummaryWriter(self.run_dir)
-            except Exception:
-                self._tb = None
         self._jsonl = open(os.path.join(self.run_dir, "metrics.jsonl"), "a")
 
     def scalars(self, prefix: str, values: dict, step: int) -> None:

@@ -2,8 +2,7 @@
 # Shared helpers for the staged experiment recipes (source this file:
 #   . "$(dirname "$0")/lib.sh"
 # ).  Stages are checkpoint-resumable, so a retry after a transient
-# failure (remote-compile hiccup, watchdog exit 114 on a wedged device
-# grant) resumes from the last epoch boundary rather than restarting.
+# failure (watchdog exit 114 on a hung step, a preempted host) resumes from the last epoch boundary rather than restarting.
 retry() {
   for i in 1 2 3; do
     "$@" && return 0

@@ -12,7 +12,7 @@
 # Both: bilstm-orig with LSTM_LEGACY_CELL=true (the reference's no-tanh
 # cell, configs/reference-parity.json), broadband corpus, 40 epochs,
 # LR 3e-4 adaptive, anchor AND kmeans eval.  bf16 compute is the one
-# deviation (TPU-native dtype; the claim under test is objective-level).
+# deviation (the claim under test is objective-level).
 set -e
 cd "$(dirname "$0")/.."
 

@@ -9,7 +9,7 @@ Stage A:  python experiments/synth_extended.py --epochs 12
 Stage B:  python experiments/synth_extended.py --epochs 12 --resume
 
 Uses the same recipe that reached 13.2 dB held-out anchor-path SNR in
-PARITY.md: SYNTH_BATCHES=60 (960 mixtures), B=16, bf16 + Pallas LSTM,
+PARITY.md: SYNTH_BATCHES=60 (960 mixtures), B=16, bf16,
 ANCHOR_AUX_LOSS=0.5, adaptive LR decay.
 """
 import argparse
@@ -73,8 +73,8 @@ def main():
     hparams.INFER_ESTIMATOR_METHOD = args.infer_est
     hparams.SYNTH_BATCHES = args.batches
     hparams.METRICS_EVERY = 10
-    # hang watchdog: a dropped tunnel/device link otherwise leaves the
-    # stage blocked forever; exit 114 lets the recipes' retry loops
+    # hang watchdog: a hung device op otherwise leaves the stage blocked
+    # forever; exit 114 lets the recipes' retry loops
     # relaunch + resume (overridable via --set WATCHDOG_SECS=...)
     hparams.WATCHDOG_SECS = 900
     hparams.SUMMARY_TITLE = "synth extended"

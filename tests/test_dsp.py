@@ -1,5 +1,6 @@
 """DSP parity tests: GEMM-native STFT/iSTFT vs scipy / reference overlap-add
 (SURVEY.md §7 step 2: scipy-parity golden tests)."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import scipy.signal
@@ -196,3 +197,23 @@ def test_ola_periodic_denom():
     interior = wsum[fft:fft + 4 * stride]
     np.testing.assert_allclose(
         np.tile(denom, 4), interior, rtol=1e-6)
+
+
+def test_stft_ri_logmag_features_match_scipy():
+    """The model's input features — log1p(|STFT|) from the device ri
+    spectra, as DaNet._mix_features computes them — match scipy on a
+    batch of odd-length signals at the default 256/64 Hann framing.
+    At precision="highest" the GEMM DFT is float32-exact to ~1e-6."""
+    rng = np.random.RandomState(3)
+    xs = (rng.randn(2, 8001) * 0.3).astype(np.float32)
+    w = _window()
+    with jax.default_matmul_precision("highest"):
+        ri = np.asarray(dsp.stft_ri(jnp.asarray(xs), 256, 64, w))
+    logmag = np.log1p(np.sqrt(np.sum(np.square(ri), axis=-1)))
+    for i in range(2):
+        z_ref = scipy.signal.stft(
+            xs[i], window=w, nperseg=256, noverlap=256 - 64)[2].T
+        assert logmag[i].shape == z_ref.shape == (
+            dsp.stft_frame_count(8001, 256, 64), 129)
+        np.testing.assert_allclose(logmag[i], np.log1p(np.abs(z_ref)),
+                                   atol=2e-6)

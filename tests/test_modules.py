@@ -622,6 +622,32 @@ def test_separate_wav_matches_host_dsp(fresh_hparams):
     np.testing.assert_allclose(device, host, atol=1e-4)
 
 
+def test_separate_wav_flagship_batch_matches_host_dsp(fresh_hparams):
+    """The serving path of the flagship (bilstm-orig, batch 2, a length
+    that is not a multiple of the stride): output shape, and each row ==
+    host scipy STFT + device separate + host iSTFT of that row."""
+    from danet_tpu.data import audio
+    from danet_tpu.ops.dsp import stft_frame_count
+    hp = fresh_hparams
+    hp.ENCODER_TYPE = "bilstm-orig"
+    hp.BATCH_SIZE = 2
+    model = DaNet()
+    params = model.init(jax.random.PRNGKey(1))
+    wav = (np.random.RandomState(1).randn(2, 3001) * 0.1).astype(np.float32)
+    with jax.default_matmul_precision("highest"):
+        device = np.asarray(jax.jit(model.separate_wav)(
+            params, jnp.asarray(wav)))
+        t = stft_frame_count(3001, hp.FFT_SIZE, hp.FFT_STRIDE)
+        assert device.shape == (2, hp.MAX_N_SIGNAL, t * hp.FFT_STRIDE)
+        z = np.stack([audio.stft_np(w) for w in wav])
+        sep_ri = np.asarray(model.separate(
+            params, jnp.asarray(audio.to_ri(z))))
+    for row in range(2):
+        host = np.stack([audio.istft_np(audio.from_ri(s))
+                         for s in sep_ri[row]])
+        np.testing.assert_allclose(device[row], host, atol=1e-4)
+
+
 def test_apply_debug_without_tap_kwarg(fresh_hparams):
     """User encoders that predate the tap hook (no tap kwarg) must still
     work through apply_debug — they just contribute no fetches."""
@@ -644,31 +670,6 @@ def test_apply_debug_without_tap_kwarg(fresh_hparams):
     embed, fetches = enc.apply_debug({}, x)
     assert embed.shape == (1, 4, hp.FEATURE_SIZE, hp.EMBED_SIZE)
     assert fetches == {}
-
-
-def test_attn_backend_resolution(fresh_hparams):
-    """ATTN_BACKEND selection: 'auto' is dense at every size (r5
-    measured flash 1.6-1.9x slower across T=128..1024 at this model's
-    shapes); 'flash' is explicit opt-in; typos rejected."""
-    import pytest
-    from danet_tpu.ops.pallas import attention as attn
-
-    hp = fresh_hparams
-    dense = object()
-    assert attn.resolve_attn_fn(hp, 512, dense) is dense
-    hp.ATTN_BACKEND = "flash"
-    assert attn.resolve_attn_fn(hp, 512, dense) \
-        is attn.flash_attention_masked
-    hp.ATTN_BACKEND = "xla"
-    assert attn.resolve_attn_fn(hp, 512, dense) is dense
-    hp.ATTN_BACKEND = "bogus"
-    with pytest.raises(ValueError, match="ATTN_BACKEND"):
-        attn.resolve_attn_fn(hp, 512, dense)
-    # the measured default: dense regardless of platform or length
-    import unittest.mock as mock
-    with mock.patch("jax.default_backend", return_value="tpu"):
-        for t in (128, 300, 512, 4096):
-            assert attn.attn_backend_default(t) == "xla"
 
 
 @pytest.mark.parametrize("enc", ["lstm-orig", "gru-v1", "tcn-v1",
@@ -1037,7 +1038,7 @@ def test_attn_encoder_chunked_causal_matches_dense(fresh_hparams):
                                  "moe-v1", "tcn-v1", "dprnn-v1"])
 def test_train_grads_under_bf16(fresh_hparams, enc):
     """Every encoder family must take gradients under COMPUTE_DTYPE=
-    bfloat16 — the TPU production dtype.  Regression: conv2d_apply's
+    bfloat16 — the production training dtype.  Regression: conv2d_apply's
     f32-output override made the conv VJP see an f32 cotangent against
     bf16 operands, so conv-bilstm-v1 could not train in bf16 at all
     (forward-only unit tests never caught it)."""

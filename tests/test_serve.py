@@ -2,7 +2,7 @@
 with the live model, bucket padding/trimming, manifest validation.
 
 The reference has no serving surface at all (demo mode only,
-main.py:655-716); serve.py is the TPU-native production path.
+main.py:655-716); serve.py is the production path.
 """
 import json
 import os
@@ -55,18 +55,16 @@ def test_export_roundtrip_matches_live_model(tiny_model, tmp_path):
 
 
 def test_export_does_not_mutate_shared_hparams(tiny_model, tmp_path):
-    """Multi-platform exports pin the portable XLA backends on a COPY of
-    the config — the caller's shared hparams must be left untouched
+    """Exports drop training-time MESH_* strategies on a COPY of the
+    config — the caller's shared hparams must be left untouched
     (advisor r1: the old save/restore pattern was not reentrant and
     leaked mid-export state to concurrent readers)."""
     model, params = tiny_model
-    hparams.STFT_BACKEND = "auto"
-    hparams.LSTM_BACKEND = "auto"
+    hparams.MESH_SEQ = 2
     serve.export_separator(model, params, str(tmp_path / "a"),
                            lengths=[4096], platforms=["cpu"])
-    assert hparams.STFT_BACKEND == "auto"
-    assert hparams.LSTM_BACKEND == "auto"
-    assert model.hp.STFT_BACKEND == "auto"  # caller's model untouched too
+    assert hparams.MESH_SEQ == 2
+    assert model.hp.MESH_SEQ == 2  # caller's model untouched too
 
 
 def test_bucket_selection_and_errors(tiny_model, tmp_path):
@@ -133,22 +131,6 @@ def test_load_wav_raw_scaling(tmp_path):
         assert abs(float(np.mean(got))) < 0.01, (name, "dc offset")
 
 
-def test_export_rejects_pinned_pallas_for_cpu_target(tiny_model, tmp_path):
-    model, params = tiny_model
-    hparams.STFT_BACKEND = "pallas"
-    try:
-        with pytest.raises(ValueError, match="portable XLA"):
-            serve.export_separator(model, params, str(tmp_path / "a"),
-                                   lengths=[4096], platforms=["cpu"])
-    finally:
-        hparams.STFT_BACKEND = "auto"
-    # and the backends are restored after a successful export
-    serve.export_separator(model, params, str(tmp_path / "b"),
-                           lengths=[4096], platforms=["cpu"])
-    assert hparams.STFT_BACKEND == "auto"
-    assert hparams.LSTM_BACKEND == "auto"
-
-
 def test_export_attn_encoder_roundtrip(tmp_path):
     """Serving export of the transformer encoder (tiny dims)."""
     import danet_tpu  # noqa: F401
@@ -175,7 +157,7 @@ def test_export_attn_encoder_roundtrip(tmp_path):
 
 
 def test_export_kmeans_inference_estimator(tmp_path):
-    """The shipping inference config (configs/tpu.json) uses the kmeans
+    """The shipping inference config (configs/shipping.json) uses the kmeans
     estimator; its unrolled-fori refinement must export cleanly."""
     import danet_tpu  # noqa: F401
     from danet_tpu.models import DaNet
